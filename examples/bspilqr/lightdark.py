@@ -6,11 +6,11 @@ from examples._common import setup, plot_trajectory
 
 args = setup()
 import jax, jax.numpy as jnp, numpy as np
-import trajopt_tpu
-from trajopt_tpu.core.ekf import EKF
-from trajopt_tpu.solvers import BSPiLQR
+import trajopt_jax
+from trajopt_jax.core.ekf import EKF
+from trajopt_jax.solvers import BSPiLQR
 
-env = trajopt_tpu.make("LightDark-TO-v0")
+env = trajopt_jax.make("LightDark-TO-v0")
 nb_steps = 25
 key = jax.random.PRNGKey(0)
 

@@ -5,10 +5,10 @@ from examples._common import setup
 
 args = setup()
 import jax, jax.numpy as jnp, numpy as np
-import trajopt_tpu
-from trajopt_tpu.solvers import MBGPS
+import trajopt_jax
+from trajopt_jax.solvers import MBGPS
 
-env = trajopt_tpu.make("Cartpole-TO-v0", dt=0.05, umax=(5.0,), periodic=True)
+env = trajopt_jax.make("Cartpole-TO-v0", dt=0.05, umax=(5.0,), periodic=True)
 returns = []
 for ep in range(2):
     key = jax.random.PRNGKey(ep)

@@ -6,10 +6,10 @@ from examples._common import setup, plot_trajectory
 
 args = setup()
 import jax, jax.numpy as jnp, numpy as np
-import trajopt_tpu
-from trajopt_tpu.parallel.gps import make_gps_mpc_runner
+import trajopt_jax
+from trajopt_jax.parallel.gps import make_gps_mpc_runner
 
-env = trajopt_tpu.make("DoubleCartpole-TO-v0", dt=0.05)
+env = trajopt_jax.make("DoubleCartpole-TO-v0", dt=0.05)
 run = jax.jit(make_gps_mpc_runner(env, horizon=20, nb_steps=60, nb_iter=3,
                                   init_action_sigma=1.0, kl_bound=2.0,
                                   action_penalty=1e-5))

@@ -1,7 +1,7 @@
 """MBGPS MPC on LQR (mirror of examples/gps/analytical/mpc/mb_lqr.py).
 
 The reference re-instantiates the SLSQP-driven solver at every control step;
-on a remote TPU every dual evaluation would be a host-device round trip, so
+on an accelerator every dual evaluation would be a host-device round trip, so
 this runs the whole receding-horizon loop as ONE compiled program
 (parallel/gps.make_gps_mpc_runner: log-alpha bisection dual, lax.scan over
 control steps).
@@ -16,10 +16,10 @@ from examples._common import setup
 
 args = setup()
 import jax, jax.numpy as jnp, numpy as np
-import trajopt_tpu
-from trajopt_tpu.parallel.gps import make_gps_mpc_runner
+import trajopt_jax
+from trajopt_jax.parallel.gps import make_gps_mpc_runner
 
-env = trajopt_tpu.make("LQR-TO-v0")
+env = trajopt_jax.make("LQR-TO-v0")
 run = jax.jit(make_gps_mpc_runner(env, horizon=20, nb_steps=50, nb_iter=10,
                                   init_action_sigma=10.0, kl_bound=50.0))
 xs, us, cs = run(jax.random.PRNGKey(0), env.sample_init(jax.random.PRNGKey(0)))

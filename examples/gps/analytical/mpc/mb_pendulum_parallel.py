@@ -10,10 +10,10 @@ from examples._common import setup
 
 args = setup()
 import jax, numpy as np
-import trajopt_tpu
-from trajopt_tpu.parallel.gps import run_gps_mpc_batch
+import trajopt_jax
+from trajopt_jax.parallel.gps import run_gps_mpc_batch
 
-env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
 data = run_gps_mpc_batch(
     env, jax.random.PRNGKey(0), nb_episodes=8, horizon=20, nb_steps=50,
     nb_iter=3, kl_bound=2.0, action_penalty=1e-5,

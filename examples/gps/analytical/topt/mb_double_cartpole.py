@@ -4,10 +4,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[4]))
 from examples._common import setup, plot_trajectory
 
 args = setup()
-import trajopt_tpu
-from trajopt_tpu.solvers import MBGPS
+import trajopt_jax
+from trajopt_jax.solvers import MBGPS
 
-env = trajopt_tpu.make("DoubleCartpole-TO-v0", dt=0.05)
+env = trajopt_jax.make("DoubleCartpole-TO-v0", dt=0.05)
 solver = MBGPS(env, nb_steps=100, init_state=env.init(), init_action_sigma=5.0,
                kl_bound=5.0, action_penalty=1e-5,
                activation={"mult": 1.0, "shift": 80})

@@ -8,10 +8,10 @@ from examples._common import setup
 
 args = setup()
 import jax, jax.numpy as jnp, numpy as np
-import trajopt_tpu
-from trajopt_tpu.parallel.gps import make_mbgps_solver_batched
+import trajopt_jax
+from trajopt_jax.parallel.gps import make_mbgps_solver_batched
 
-env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
 N = 8
 keys = jax.random.split(jax.random.PRNGKey(0), N)
 x0s = jax.vmap(env.sample_init)(keys)

@@ -6,10 +6,10 @@ from examples._common import setup
 
 args = setup()
 import jax, numpy as np
-import trajopt_tpu
-from trajopt_tpu.solvers import MBGPS, Riccati
+import trajopt_jax
+from trajopt_jax.solvers import MBGPS, Riccati
 
-env = trajopt_tpu.make("LQR-TO-v0")
+env = trajopt_jax.make("LQR-TO-v0")
 
 mbgps = MBGPS(env, nb_steps=100, init_state=env.init(), init_action_sigma=100.0,
               kl_bound=5.0)
@@ -19,7 +19,7 @@ riccati = Riccati(env, nb_steps=100, init_state=env.init())
 riccati.run(); riccati.run()
 
 key = jax.random.PRNGKey(1337)
-from trajopt_tpu.solvers.common import rollout_batch
+from trajopt_jax.solvers.common import rollout_batch
 gps_data = rollout_batch(env, mbgps.ctl, key, mbgps.weighting, 250, stoch_policy=False)
 ric_data = riccati.rollout(key, 250)
 

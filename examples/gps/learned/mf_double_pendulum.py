@@ -4,10 +4,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[3]))
 from examples._common import setup, plot_trajectory
 
 args = setup()
-import trajopt_tpu
-from trajopt_tpu.solvers import MFGPS
+import trajopt_jax
+from trajopt_jax.solvers import MFGPS
 
-env = trajopt_tpu.make("DoublePendulum-TO-v0", dt=0.05, sigma_scale=1e-4)
+env = trajopt_jax.make("DoublePendulum-TO-v0", dt=0.05, sigma_scale=1e-4)
 solver = MFGPS(env, nb_steps=60, init_state=env.init(), init_action_sigma=2.0,
                kl_bound=5.0, action_penalty=1e-5,
                activation={"mult": 1.0, "shift": 50})

@@ -5,10 +5,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[3]))
 from examples._common import setup, plot_trajectory
 
 args = setup()
-import trajopt_tpu
-from trajopt_tpu.solvers import MFGPS
+import trajopt_jax
+from trajopt_jax.solvers import MFGPS
 
-env = trajopt_tpu.make("LQR-TO-v1", sigma_scale=1e-4)
+env = trajopt_jax.make("LQR-TO-v1", sigma_scale=1e-4)
 solver = MFGPS(env, nb_steps=50, init_state=env.init(), init_action_sigma=1.0,
                kl_bound=2.0)
 trace = solver.run(nb_iter=10, nb_episodes=64, verbose=True)

@@ -8,11 +8,11 @@ from examples._common import setup, plot_trajectory
 
 args = setup()
 import jax, jax.numpy as jnp, numpy as np
-import trajopt_tpu
-from trajopt_tpu.parallel.gps import make_mfgps_solver
-from trajopt_tpu.solvers.common import make_weighting, rollout_batch
+import trajopt_jax
+from trajopt_jax.parallel.gps import make_mfgps_solver
+from trajopt_jax.solvers.common import make_weighting, rollout_batch
 
-env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05, sigma_scale=1e-4)
+env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05, sigma_scale=1e-4)
 mu0, sigma0 = env.init()
 solve = jax.jit(make_mfgps_solver(
     env, nb_steps=60, nb_iter=15, nb_episodes=64, init_action_sigma=2.0,

@@ -5,10 +5,10 @@ from examples._common import setup, plot_trajectory
 
 args = setup()
 import jax.numpy as jnp, numpy as np
-import trajopt_tpu
-from trajopt_tpu.solvers import iLQR
+import trajopt_jax
+from trajopt_jax.solvers import iLQR
 
-env = trajopt_tpu.make("LQR-TO-v0")
+env = trajopt_jax.make("LQR-TO-v0")
 solver = iLQR(env, nb_steps=60, init_state=jnp.asarray(np.array(env.x0)))
 trace = solver.run(nb_iter=25)
 print(f"iLQR LQR: {trace[0]:.2f} -> {trace[-1]:.2f} in {len(trace)-1} accepted iters")

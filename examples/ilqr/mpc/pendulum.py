@@ -7,10 +7,10 @@ from examples._common import setup, plot_trajectory
 
 args = setup()
 import jax, jax.numpy as jnp, numpy as np
-import trajopt_tpu
-from trajopt_tpu.parallel.mpc import make_mpc_runner
+import trajopt_jax
+from trajopt_jax.parallel.mpc import make_mpc_runner
 
-env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
 run = jax.jit(make_mpc_runner(env, horizon=25, nb_steps=100, nb_iter=10))
 states, actions, costs = run(jax.random.PRNGKey(0), jnp.asarray(np.array(env.x0)))
 print(f"MPC pendulum: total cost {float(costs.sum()):.2f}, "

@@ -16,10 +16,10 @@ from examples._common import setup
 
 args = setup()
 import jax.numpy as jnp, numpy as np
-import trajopt_tpu
-from trajopt_tpu.solvers import LRGPS
+import trajopt_jax
+from trajopt_jax.solvers import LRGPS
 
-env = trajopt_tpu.make("LQR-TO-v1", sigma_scale=1e-4)
+env = trajopt_jax.make("LQR-TO-v1", sigma_scale=1e-4)
 kwargs = dict(nb_steps=40, init_state=env.init(), init_action_sigma=100.0,
               policy_kl_bound=0.25, param_nominal_kl_bound=400.0,
               param_regularizer_kl_bound=10.0)

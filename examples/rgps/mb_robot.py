@@ -5,10 +5,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 from examples._common import setup, plot_trajectory
 
 args = setup()
-import trajopt_tpu
-from trajopt_tpu.solvers import MBRGPS
+import trajopt_jax
+from trajopt_jax.solvers import MBRGPS
 
-env = trajopt_tpu.make("Robot-TO-v0", sigma_scale=1e-4)
+env = trajopt_jax.make("Robot-TO-v0", sigma_scale=1e-4)
 solver = MBRGPS(env, nb_steps=50, init_state=env.init(), init_action_sigma=1.0,
                 policy_kl_bound=1.0, param_nominal_kl_bound=50.0,
                 nominal_variance=1e-8)

@@ -4,10 +4,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 from examples._common import setup, plot_trajectory
 
 args = setup()
-import trajopt_tpu
-from trajopt_tpu.solvers import Riccati
+import trajopt_jax
+from trajopt_jax.solvers import Riccati
 
-env = trajopt_tpu.make("LQR-TO-v0")
+env = trajopt_jax.make("LQR-TO-v0")
 alg = Riccati(env, nb_steps=60, init_state=env.init())
 cost = alg.run()
 print(f"Riccati LQR cost: {cost:.4f}")

@@ -109,13 +109,13 @@ def make_rgps_pins():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
-    from trajopt_tpu.core.cubature import (
+    from trajopt_jax.core.cubature import (
         cubature_forward_pass,
         parameter_augment_cost,
         parameter_backward_pass,
         policy_backward_pass,
     )
-    from trajopt_tpu.core.types import (
+    from trajopt_jax.core.types import (
         LinearGaussianPolicy,
         MatrixNormalParams,
         QuadraticCost,

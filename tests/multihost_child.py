@@ -34,7 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-from trajopt_tpu.parallel.mesh import init_multihost, make_mesh  # noqa: E402
+from trajopt_jax.parallel.mesh import init_multihost, make_mesh  # noqa: E402
 
 
 def main(port: int, pid: int, nproc: int) -> None:
@@ -87,10 +87,10 @@ def main(port: int, pid: int, nproc: int) -> None:
     # dp-sharded batch of FULL iLQR solves spanning both processes' devices,
     # globally psum-reduced; each process also computes the whole batch
     # sequentially on one local device as the reference.
-    import trajopt_tpu
-    from trajopt_tpu.parallel.mpc import make_ilqr_solver
+    import trajopt_jax
+    from trajopt_jax.parallel.mpc import make_ilqr_solver
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     solve = make_ilqr_solver(env, nb_steps=12, nb_iter=2)
     batch = 2 * n_global
     x0_np = np.tile(np.asarray(np.array(env.x0), np.float32), (batch, 1))
@@ -115,9 +115,9 @@ def main(port: int, pid: int, nproc: int) -> None:
     # the two processes; the all-gathered policy must equal the sequential
     # single-device recursion.
     import ref_impl
-    from trajopt_tpu.core.pscan_lqr import sharded_backward
-    from trajopt_tpu.core.scan_lqr import riccati_backward
-    from trajopt_tpu.core.types import LinearDynamics, QuadraticCost
+    from trajopt_jax.core.pscan_lqr import sharded_backward
+    from trajopt_jax.core.scan_lqr import riccati_backward
+    from trajopt_jax.core.types import LinearDynamics, QuadraticCost
 
     T = n_global * 8 - 1  # T+1 divides the mesh axis exactly
     rng = np.random.default_rng(11)

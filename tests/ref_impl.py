@@ -2,7 +2,7 @@
 
 These mirror the *equations* of the reference's C++ kernels (cited per function) and
 serve as the unit-test oracles for the JAX scan kernels, per the test strategy in
-SURVEY.md §4.  Time axis is leading, matching trajopt_tpu conventions.
+SURVEY.md §4.  Time axis is leading, matching trajopt_jax conventions.
 """
 
 from __future__ import annotations
@@ -235,7 +235,7 @@ def quad_pendulum_ode_np(x, u):
     """DECLARED TEST ORACLE — equation-level transcription of the reference's
     four-link closed-form dynamics (envs/quad_pendulum/quad_pendulum.py:62-228,
     itself from Atkeson's dynamics-2d / PolicySearchToolbox).  Used ONLY to pin
-    trajopt_tpu.envs.nlink.nlink_ode(n=4) — the shipped library code generates the
+    trajopt_jax.envs.nlink.nlink_ode(n=4) — the shipped library code generates the
     same Euler-Lagrange equations by autodiff and shares no code with this.
 
     Inputs: x = (th1..th4, dth1..dth4) external coordinates (th1 = 0 upright),

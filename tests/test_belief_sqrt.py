@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.core.belief import (
+import trajopt_jax
+from trajopt_jax.core.belief import (
     belief_cost_expansion,
     belief_dynamics_expansion,
     bsp_backward,
@@ -17,7 +17,7 @@ from trajopt_tpu.core.belief import (
 
 
 def _lightdark_expansion(T=12, seed=0):
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     key = jax.random.PRNGKey(seed)
     b, a = env.belief_dim, env.act_dim
     mu_b = 2.0 + 0.5 * jax.random.normal(key, (T + 1, b))
@@ -62,9 +62,9 @@ def test_sqrt_backward_value_psd_by_construction():
 def test_sqrt_solver_matches_dense_solver():
     """Compiled BSP solver with value_form='sqrt' == 'dense' through the full
     solve (f64, light-dark)."""
-    from trajopt_tpu.parallel.bsp import make_bsp_solver
+    from trajopt_jax.parallel.bsp import make_bsp_solver
 
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     mu0, sigma0 = env.init()
     mu0 = jnp.asarray(mu0)
     sigma0 = jnp.asarray(sigma0)

@@ -1,18 +1,17 @@
 """Batched BSP-iLQR solver (parallel/bsp.make_bsp_solver_batched) parity:
-per-instance traces must match the single-problem compiled solver exactly,
-for both the vmapped-scan and the packed Pallas backward engines."""
+per-instance traces must match the single-problem compiled solver exactly."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.parallel.bsp import make_bsp_solver, make_bsp_solver_batched
+import trajopt_jax
+from trajopt_jax.parallel.bsp import make_bsp_solver, make_bsp_solver_batched
 
 
 def _problem(N):
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     mu0, sigma0 = env.init()
     mu0s = jnp.tile(jnp.asarray(mu0), (N, 1)) \
         + 0.05 * jnp.arange(N, dtype=jnp.float64)[:, None]
@@ -20,8 +19,7 @@ def _problem(N):
     return env, mu0s, sigma0s
 
 
-@pytest.mark.parametrize("engine,interpret", [("scan", False), ("pallas", True)])
-def test_bsp_batched_matches_single(engine, interpret):
+def test_bsp_batched_matches_single():
     N, T, nb_iter = 3, 10, 6
     env, mu0s, sigma0s = _problem(N)
 
@@ -32,11 +30,7 @@ def test_bsp_batched_matches_single(engine, interpret):
         traces_ref.append(np.asarray(tr))
     traces_ref = np.stack(traces_ref, axis=1)  # (nb_iter, N)
 
-    solve = make_bsp_solver_batched(
-        env, nb_steps=T, nb_iter=nb_iter, engine=engine, interpret=interpret
-    )
-    if engine == "scan":
-        solve = jax.jit(solve)
+    solve = jax.jit(make_bsp_solver_batched(env, nb_steps=T, nb_iter=nb_iter))
     state, trace = solve(mu0s, sigma0s)
     np.testing.assert_allclose(np.asarray(trace), traces_ref, rtol=1e-8,
                                atol=1e-8)
@@ -46,7 +40,7 @@ def test_bsp_batched_matches_single(engine, interpret):
 def test_bsp_batched_sharded_matches_unsharded():
     """mesh= block-shards the problem axis; per-shard λ loops must reproduce
     the unsharded batched solver exactly (8-device virtual CPU mesh)."""
-    from trajopt_tpu.parallel.mesh import make_mesh
+    from trajopt_jax.parallel.mesh import make_mesh
 
     N, T, nb_iter = 8, 8, 4
     env, mu0s, sigma0s = _problem(N)

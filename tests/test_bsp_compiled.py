@@ -6,17 +6,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import trajopt_tpu
-from trajopt_tpu.parallel.bsp import (
+import trajopt_jax
+from trajopt_jax.parallel.bsp import (
     make_bsp_mpc_runner,
     make_bsp_solver,
     run_bsp_mpc_batch,
 )
-from trajopt_tpu.solvers import BSPiLQR
+from trajopt_jax.solvers import BSPiLQR
 
 
 def test_compiled_matches_host_on_lightdark():
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     mu0, sigma0 = env.init()
 
     solve = jax.jit(make_bsp_solver(env, nb_steps=10, nb_iter=25))
@@ -37,7 +37,7 @@ def test_compiled_belief_mpc_collapses_uncertainty():
     """Light-dark homing: the MPC must steer toward the light (shrinking EKF
     x-variance from 5.0 to ~0) and drive the belief mean to the goal — the
     behavioral signature of examples/bspilqr/lightdark.py."""
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     run = jax.jit(make_bsp_mpc_runner(env, horizon=10, nb_steps=15, nb_iter=15))
     xs, mus, sigmas, us, cs = run(jax.random.PRNGKey(0), env.reset_state())
 
@@ -47,7 +47,7 @@ def test_compiled_belief_mpc_collapses_uncertainty():
 
 
 def test_bsp_mpc_batch():
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     data = run_bsp_mpc_batch(
         env, jax.random.PRNGKey(1), nb_episodes=3, horizon=8, nb_steps=6, nb_iter=8
     )
@@ -61,7 +61,7 @@ def test_bsp_mpc_batch_sharded_matches_unsharded():
     mesh must reproduce the unsharded result (VERDICT r1 weak #5)."""
     from jax.sharding import Mesh
 
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     mesh = Mesh(np.array(jax.devices("cpu")[:8]), axis_names=("dp",))
 
     kwargs = dict(nb_episodes=8, horizon=8, nb_steps=4, nb_iter=6)

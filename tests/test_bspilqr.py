@@ -1,15 +1,15 @@
 import jax.numpy as jnp
 import numpy as np
 
-import trajopt_tpu
-from trajopt_tpu.core.belief import (
+import trajopt_jax
+from trajopt_jax.core.belief import (
     BeliefCostExpansion,
     BeliefDynamicsExpansion,
     belief_dynamics_expansion,
     bsp_backward,
 )
-from trajopt_tpu.core.ekf import EKF, belief_ekf_step
-from trajopt_tpu.solvers.bspilqr import BSPiLQR
+from trajopt_jax.core.ekf import EKF, belief_ekf_step
+from trajopt_jax.solvers.bspilqr import BSPiLQR
 
 
 def bsp_backward_np(Q, q, R, r, P, p, F, G, X, Y, Z, T_, U, V, lmbda, reg):
@@ -96,7 +96,7 @@ def test_native_bsp_backward_cross_validates_jax():
     """The independent C++ belief-value backward recursion (the bench.py CPU
     denominator for the bsp config) must agree with the JAX scan kernel for
     both regularization modes."""
-    from trajopt_tpu.utils.native import bsp_backward_native
+    from trajopt_jax.utils.native import bsp_backward_native
 
     rng = np.random.default_rng(23)
     T, b, a = 9, 2, 2
@@ -140,7 +140,7 @@ def test_native_bsp_backward_cross_validates_jax():
 
 def test_belief_dynamics_expansion_is_consistent():
     """Finite-difference check of the vmapped belief-dynamics Jacobian."""
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     b = env.belief_dim
     mu = jnp.array([2.0, 2.0])
     sigma = jnp.array([[5.0, 0.0], [0.0, 1e-8]])
@@ -173,7 +173,7 @@ def test_bspilqr_lightdark_golden():
     reference's autograd clip and ours share this property, so the test asserts the
     information-gathering *outcome* (variance collapse + homing), not the route.
     """
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     solver = BSPiLQR(env, nb_steps=10, init_belief=env.init())
     trace = solver.run(nb_iter=25)
 
@@ -191,7 +191,7 @@ def test_bspilqr_lightdark_golden():
 def test_ekf_estimates_state():
     import jax
 
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     ekf = EKF(env)
     key = jax.random.PRNGKey(0)
 

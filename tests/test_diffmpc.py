@@ -12,9 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import trajopt_tpu
-from trajopt_tpu.parallel.diffmpc import make_ilqr_solver_diff
-from trajopt_tpu.parallel.mpc import make_ilqr_solver_batched
+import trajopt_jax
+from trajopt_jax.parallel.diffmpc import make_ilqr_solver_diff
+from trajopt_jax.parallel.mpc import make_ilqr_solver_batched
 
 
 def _x0s(env, n, seed=0):
@@ -27,7 +27,7 @@ def test_differentiable_mode_matches_default_solver():
     """differentiable=True must reproduce the while_loop solver exactly when the
     λ escalation terminates within lm_steps trips (it is a masked fixed-length
     rewrite of the same loop)."""
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
     x0s = _x0s(env, 3)
 
     ref = jax.jit(make_ilqr_solver_batched(env, nb_steps=25, nb_iter=6))
@@ -53,7 +53,7 @@ def test_grad_x0_matches_finite_differences():
 
     LQR keeps the solve smooth in x0 (no accept/reject branch flips between
     FD evaluation points)."""
-    env = trajopt_tpu.make("LQR-TO-v0")
+    env = trajopt_jax.make("LQR-TO-v0")
     solve = make_ilqr_solver_diff(env, nb_steps=20, nb_iter=3)
 
     def loss(x0s):
@@ -77,7 +77,7 @@ def test_grad_x0_matches_finite_differences():
 def test_grad_env_params_matches_finite_differences():
     """Inverse-optimal-control gradient: d(loss on the converged trajectory)/
     d(cost weights) via env.replace with traced leaves, vs central differences."""
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
     solve = make_ilqr_solver_diff(
         env,
         nb_steps=20,
@@ -106,7 +106,7 @@ def test_grad_env_params_matches_finite_differences():
 
 
 def test_differentiable_requires_scan_engines():
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
     try:
         make_ilqr_solver_batched(
             env, nb_steps=10, differentiable=True, backward="pallas"
@@ -120,9 +120,9 @@ def test_differentiable_requires_scan_engines():
 def test_grad_through_compiled_elqr_matches_fd():
     """The compiled eLQR (parallel/elqr.py) is built from scans/linearizations
     only — reverse-differentiable out of the box; pin it against FD."""
-    from trajopt_tpu.parallel.elqr import make_elqr_solver
+    from trajopt_jax.parallel.elqr import make_elqr_solver
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
     solve = make_elqr_solver(env, 15, nb_iter=4)
 
     def loss(x0):
@@ -144,9 +144,9 @@ def test_grad_through_compiled_elqr_matches_fd():
 def test_grad_through_batched_riccati_matches_fd():
     """Exact-LQR solve (parallel/riccati.py): d(total cost)/d(x0) through the
     whole backward-pass + rollout program vs FD."""
-    from trajopt_tpu.parallel.riccati import make_riccati_solver_batched
+    from trajopt_jax.parallel.riccati import make_riccati_solver_batched
 
-    env = trajopt_tpu.make("LQR-TO-v0")
+    env = trajopt_jax.make("LQR-TO-v0")
     solve = make_riccati_solver_batched(env, 30)
 
     def loss(x0s):
@@ -172,9 +172,9 @@ def test_gps_implicit_dual_grad_matches_fd():
     piecewise-constant, so plain AD drops dα*/dθ — the custom_vjp implicit
     function theorem on KL(α*)=ε restores the exact gradient.  Pinned against
     FD and against primal equality with the default solver."""
-    from trajopt_tpu.parallel.gps import make_mbgps_solver
+    from trajopt_jax.parallel.gps import make_mbgps_solver
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
 
     def make_loss(diff):
         def loss(p):
@@ -215,9 +215,9 @@ def test_rgps_differentiable_matches_default_and_fd():
     implicit-function-theorem custom_vjp as GPS.  Primal equality is exact;
     d(robust expected cost)/d(mu0) through the full min-max solve is pinned
     against central differences."""
-    from trajopt_tpu.parallel.rgps import make_rgps_solver
+    from trajopt_jax.parallel.rgps import make_rgps_solver
 
-    env = trajopt_tpu.make("LQR-TO-v1")
+    env = trajopt_jax.make("LQR-TO-v1")
     mu0, sigma0 = env.init()
     mu0 = jnp.asarray(np.asarray(mu0), jnp.float64)
     sigma0 = jnp.asarray(np.asarray(sigma0), jnp.float64)
@@ -260,9 +260,9 @@ def test_rgps_differentiable_iterative_adversary_smoke():
     regularized small-KL adversary's η-bisections are already scans, and its
     fixed-point solves go through the same gated-scan rewrite — primal must
     equal the default solver exactly, and the gradient stay finite."""
-    from trajopt_tpu.parallel.rgps import make_rgps_solver
+    from trajopt_jax.parallel.rgps import make_rgps_solver
 
-    env = trajopt_tpu.make("LQR-TO-v1")
+    env = trajopt_jax.make("LQR-TO-v1")
     mu0, sigma0 = env.init()
     mu0 = jnp.asarray(np.asarray(mu0), jnp.float64)
     sigma0 = jnp.asarray(np.asarray(sigma0), jnp.float64)
@@ -288,9 +288,9 @@ def test_bsp_differentiable_matches_default_and_fd():
     """make_bsp_solver(differentiable=True): exact rewrite of the compiled
     belief-space solver + FD-pinned gradients w.r.t. the initial belief mean
     and the belief-cost weights (planning sensitivities through the EKF)."""
-    from trajopt_tpu.parallel.bsp import make_bsp_solver
+    from trajopt_jax.parallel.bsp import make_bsp_solver
 
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     mu0, sigma0 = env.init()
     mu0 = jnp.asarray(np.asarray(mu0), jnp.float64)
     sigma0 = jnp.asarray(np.asarray(sigma0), jnp.float64)
@@ -331,9 +331,9 @@ def test_gps_stepwise_implicit_dual_grad_matches_fd():
     custom_vjp (Cholesky normal equations).  Primal equality is exact; the
     gradient is pinned against central differences; plain AD must NOT match
     (the staircase sensitivity it drops is real)."""
-    from trajopt_tpu.parallel.gps import make_mbgps_solver
+    from trajopt_jax.parallel.gps import make_mbgps_solver
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
 
     def make_loss(diff):
         def loss(p):
@@ -375,9 +375,9 @@ def test_rgps_stepwise_differentiable_grad_matches_fd():
     """make_rgps_solver(differentiable=True, policy_kl_stepwise=True): the
     stepwise policy dual's damped log-α fixed point gets the dense (T, T)
     implicit custom_vjp; d(robust cost)/d(mu0) pinned against FD."""
-    from trajopt_tpu.parallel.rgps import make_rgps_solver
+    from trajopt_jax.parallel.rgps import make_rgps_solver
 
-    env = trajopt_tpu.make("LQR-TO-v1")
+    env = trajopt_jax.make("LQR-TO-v1")
     mu0, sigma0 = env.init()
     mu0 = jnp.asarray(np.asarray(mu0), jnp.float64)
     sigma0 = jnp.asarray(np.asarray(sigma0), jnp.float64)

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.solvers.elqr import eLQR
+import trajopt_jax
+from trajopt_jax.solvers.elqr import eLQR
 
 
 def _reference_elqr_lqr(T=60, nb_iter=10, seed=0):
@@ -132,7 +132,7 @@ def _reference_elqr_lqr(T=60, nb_iter=10, seed=0):
 def test_elqr_matches_reference_fixed_point_on_lqr():
     ref_trace = _reference_elqr_lqr()
 
-    env = trajopt_tpu.make("LQR-TO-v0")
+    env = trajopt_jax.make("LQR-TO-v0")
     alg = eLQR(env, nb_steps=60, init_state=np.array(env.x0))
     trace = alg.run(nb_iter=10)
 
@@ -144,7 +144,7 @@ def test_elqr_matches_reference_fixed_point_on_lqr():
 
 
 def test_elqr_pendulum_improves():
-    env = trajopt_tpu.make("Pendulum-TO-v0")
+    env = trajopt_jax.make("Pendulum-TO-v0")
     alg = eLQR(env, nb_steps=100, init_state=np.array(env.x0))
     trace = alg.run(nb_iter=10)
     assert np.isfinite(trace[-1])
@@ -157,11 +157,11 @@ def test_compiled_elqr_matches_host():
     import jax
     import jax.numpy as jnp
 
-    import trajopt_tpu
-    from trajopt_tpu.parallel.elqr import make_elqr_solver
-    from trajopt_tpu.solvers.elqr import eLQR
+    import trajopt_jax
+    from trajopt_jax.parallel.elqr import make_elqr_solver
+    from trajopt_jax.solvers.elqr import eLQR
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.01).replace(uw=(1e-3,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.01).replace(uw=(1e-3,))
     x0 = jnp.asarray(env.x0)
 
     host = eLQR(env, nb_steps=40, init_state=x0, key=jax.random.PRNGKey(0))

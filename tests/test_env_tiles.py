@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.core.pallas_rollout import tile_cost, tile_dynamics
+import trajopt_jax
+from trajopt_jax.core.pallas_rollout import tile_cost, tile_dynamics
 
 TILE_ENVS = [
     "Pendulum-TO-v0",
@@ -26,7 +26,7 @@ TILE_ENVS = [
 
 @pytest.mark.parametrize("name", TILE_ENVS)
 def test_tile_dynamics_matches_env_dynamics(name):
-    env = trajopt_tpu.make(name)
+    env = trajopt_jax.make(name)
     assert env.supports_tiles
     rng = np.random.default_rng(0)
     for i in range(5):
@@ -44,7 +44,7 @@ def test_tile_dynamics_matches_env_dynamics(name):
 
 @pytest.mark.parametrize("name", TILE_ENVS)
 def test_tile_cost_matches_env_cost(name):
-    env = trajopt_tpu.make(name)
+    env = trajopt_jax.make(name)
     rng = np.random.default_rng(1)
     for w in (1.0, 0.0, 3.5):
         x = jnp.asarray(0.5 * rng.standard_normal(env.dm_state))
@@ -62,7 +62,7 @@ def test_tile_cost_matches_env_cost(name):
 
 def test_nlink_ode_parts_matches_array_ode():
     for name in ("DoublePendulum-TO-v0", "QuadPendulum-TO-v0"):
-        env = trajopt_tpu.make(name)
+        env = trajopt_jax.make(name)
         rng = np.random.default_rng(2)
         for _ in range(5):
             x = jnp.asarray(rng.standard_normal(env.dm_state))
@@ -81,9 +81,9 @@ def test_nlink_ode_parts_matches_array_ode():
 def test_solver_glue_pallas_rollout_matches_scan(name):
     """Solver-level parity of rollout='pallas' (interpret) on the new tile
     envs — the fused line search must reproduce the scan line search."""
-    from trajopt_tpu.parallel.mpc import make_ilqr_solver_batched
+    from trajopt_jax.parallel.mpc import make_ilqr_solver_batched
 
-    env = trajopt_tpu.make(name)
+    env = trajopt_jax.make(name)
     N, T = 4, 16
     rng = np.random.default_rng(3)
     x0 = np.asarray(env.x0, dtype=np.float64)

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.envs.nlink import _chain_energies, nlink_ode
+import trajopt_jax
+from trajopt_jax.envs.nlink import _chain_energies, nlink_ode
 
 ALL_ENVS = [
     "LQR-TO-v0", "LQR-TO-v1", "LQR-TO-v2",
@@ -20,13 +20,13 @@ BELIEF_ENVS = ["LightDark-TO-v0", "Car-TO-v0"]
 
 def test_registry_covers_reference_ids():
     """All 16 registered env ids of the reference (trajopt/__init__.py:3-97)."""
-    assert set(ALL_ENVS + BELIEF_ENVS) <= set(trajopt_tpu.registered())
+    assert set(ALL_ENVS + BELIEF_ENVS) <= set(trajopt_jax.registered())
     assert len(ALL_ENVS + BELIEF_ENVS) == 16
 
 
 @pytest.mark.parametrize("name", ALL_ENVS)
 def test_env_protocol(name):
-    env = trajopt_tpu.make(name)
+    env = trajopt_jax.make(name)
     x0, sigma0 = env.init()
     assert x0.shape == (env.dm_state,)
     assert sigma0.shape == (env.dm_state, env.dm_state)
@@ -54,7 +54,7 @@ def test_env_protocol(name):
 
 @pytest.mark.parametrize("name", BELIEF_ENVS)
 def test_belief_env_protocol(name):
-    env = trajopt_tpu.make(name)
+    env = trajopt_jax.make(name)
     mu, sigma = env.init()
     assert mu.shape == (env.belief_dim,)
 
@@ -191,9 +191,9 @@ def test_ilqr_cartpole_swingup():
     """Cartpole swing-up via iLQR with Cartesian cost and terminal-weighted sigmoid
     activation (cost schedule of examples/gps/analytical/topt/mb_cartpole.py:20-26;
     BASELINE.json config family #3)."""
-    from trajopt_tpu.solvers.ilqr import iLQR
+    from trajopt_jax.solvers.ilqr import iLQR
 
-    env = trajopt_tpu.make("Cartpole-TO-v1", dt=0.05)
+    env = trajopt_jax.make("Cartpole-TO-v1", dt=0.05)
     solver = iLQR(env, nb_steps=100, init_state=jnp.asarray(env.x0),
                   action_penalty=1e-5, activation={"mult": 1.0, "shift": 80})
     trace = solver.run(nb_iter=100)

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from trajopt_tpu.core.scan_lqr import (
+from trajopt_jax.core.scan_lqr import (
     augment_cost_kl,
     gaussian_forward,
     gps_backward,
@@ -24,7 +24,7 @@ from trajopt_tpu.core.scan_lqr import (
     policy_kl,
     riccati_backward,
 )
-from trajopt_tpu.core.types import (
+from trajopt_jax.core.types import (
     GaussianSequence,
     LinearDynamics,
     LinearGaussianDynamics,
@@ -143,7 +143,7 @@ class TestRgpsPins:
         return np.load(path)
 
     def _inputs(self, rp):
-        from trajopt_tpu.core.types import (
+        from trajopt_jax.core.types import (
             LinearGaussianPolicy,
             MatrixNormalParams,
         )
@@ -165,7 +165,7 @@ class TestRgpsPins:
         return nominal, ctl, noise, T, dx
 
     def test_cubature_pin(self, rp):
-        from trajopt_tpu.core.cubature import cubature_forward_pass
+        from trajopt_jax.core.cubature import cubature_forward_pass
 
         nominal, ctl, noise, T, dx = self._inputs(rp)
         xdist, udist, _ = cubature_forward_pass(
@@ -180,11 +180,11 @@ class TestRgpsPins:
                                    rtol=1e-10, atol=1e-12)
 
     def test_adversary_pin(self, rp):
-        from trajopt_tpu.core.cubature import (
+        from trajopt_jax.core.cubature import (
             parameter_augment_cost,
             parameter_backward_pass,
         )
-        from trajopt_tpu.core.types import GaussianSequence, QuadraticCost
+        from trajopt_jax.core.types import GaussianSequence, QuadraticCost
 
         nominal, ctl, noise, T, dx = self._inputs(rp)
         cost = QuadraticCost(*[jnp.asarray(rp[f"in_{k}"]) for k in
@@ -202,8 +202,8 @@ class TestRgpsPins:
                                    rtol=1e-9, atol=1e-12)
 
     def test_policy_pin(self, rp):
-        from trajopt_tpu.core.cubature import policy_backward_pass
-        from trajopt_tpu.core.types import QuadraticCost
+        from trajopt_jax.core.cubature import policy_backward_pass
+        from trajopt_jax.core.types import QuadraticCost
 
         nominal, ctl, noise, T, dx = self._inputs(rp)
         cost = QuadraticCost(*[jnp.asarray(rp[f"in_{k}"]) for k in

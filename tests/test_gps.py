@@ -2,16 +2,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.solvers.gps import MBGPS, MFGPS
-from trajopt_tpu.solvers.riccati import Riccati
+import trajopt_jax
+from trajopt_jax.solvers.gps import MBGPS, MFGPS
+from trajopt_jax.solvers.riccati import Riccati
 
 
 def test_mbgps_matches_riccati_on_lqr():
     """The reference's own cross-solver oracle (examples/gps/analytical/topt/
     mbgps_riccati.py:20-41): MBGPS and Riccati on the same LQR task must converge to
     the same cost."""
-    env = trajopt_tpu.make("LQR-TO-v0")
+    env = trajopt_jax.make("LQR-TO-v0")
 
     mbgps = MBGPS(
         env, nb_steps=100, init_state=env.init(), init_action_sigma=100.0,
@@ -38,7 +38,7 @@ def test_mbgps_matches_riccati_on_lqr():
 def test_mbgps_pendulum_swingup():
     """Headline GPS task (examples/gps/analytical/topt/mb_pendulum.py:20-28):
     pendulum swing-up with sigmoid activation."""
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
     solver = MBGPS(
         env, nb_steps=100, init_state=env.init(), init_action_sigma=5.0,
         kl_bound=10.0, action_penalty=1.0, activation={"mult": 1.0, "shift": 80},
@@ -61,7 +61,7 @@ def test_mbgps_pendulum_swingup():
 def test_mfgps_learns_lqr_dynamics():
     """MFGPS on the linear env: the per-timestep regression must recover dynamics
     close to the analytic (A, B, c) given enough rollouts."""
-    env = trajopt_tpu.make("LQR-TO-v1")
+    env = trajopt_jax.make("LQR-TO-v1")
     solver = MFGPS(
         env, nb_steps=40, init_state=env.init(), init_action_sigma=1.0,
         kl_bound=2.0, prior={"K": 1e-6, "psi": 1e-8, "nu": 0.1},
@@ -76,7 +76,7 @@ def test_mfgps_learns_lqr_dynamics():
 
 
 def test_mfgps_improves_on_lqr():
-    env = trajopt_tpu.make("LQR-TO-v1")
+    env = trajopt_jax.make("LQR-TO-v1")
     solver = MFGPS(
         env, nb_steps=40, init_state=env.init(), init_action_sigma=1.0,
         kl_bound=2.0,

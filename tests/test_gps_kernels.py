@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from trajopt_tpu.core.scan_lqr import (
+from trajopt_jax.core.scan_lqr import (
     augment_cost_kl,
     gaussian_forward,
     gaussian_interp_kl,
@@ -10,7 +10,7 @@ from trajopt_tpu.core.scan_lqr import (
     policy_kl,
     quad_expectation,
 )
-from trajopt_tpu.core.types import (
+from trajopt_jax.core.types import (
     GaussianSequence,
     LinearGaussianDynamics,
     LinearGaussianPolicy,
@@ -178,7 +178,7 @@ def test_gaussian_interp_w2_matches_numpy_oracle():
     interp_gauss_w2 (rgps/mbrgps.py:561-577, kernel rgps/src/util.cpp:155-185)."""
     import scipy.linalg
 
-    from trajopt_tpu.core.scan_lqr import gaussian_interp_w2
+    from trajopt_jax.core.scan_lqr import gaussian_interp_w2
 
     rng = np.random.default_rng(21)
     T, d = 6, 3

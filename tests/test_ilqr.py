@@ -2,11 +2,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.core.scan_lqr import ilqr_backward
-from trajopt_tpu.core.types import QuadraticCost
-from trajopt_tpu.solvers.ilqr import iLQR
-from trajopt_tpu.solvers.riccati import Riccati
+import trajopt_jax
+from trajopt_jax.core.scan_lqr import ilqr_backward
+from trajopt_jax.core.types import QuadraticCost
+from trajopt_jax.solvers.ilqr import iLQR
+from trajopt_jax.solvers.riccati import Riccati
 
 from ref_impl import ilqr_backward_np, random_quadratic_problem
 
@@ -55,7 +55,7 @@ def test_ilqr_backward_detects_divergence():
 
 def test_ilqr_matches_riccati_on_lqr():
     """On an exactly linear-quadratic task iLQR must find the LQR optimum."""
-    env = trajopt_tpu.make("LQR-TO-v0")
+    env = trajopt_jax.make("LQR-TO-v0")
 
     riccati = Riccati(env, nb_steps=60, init_state=env.init())
     c_riccati = riccati.run()
@@ -70,7 +70,7 @@ def test_ilqr_matches_riccati_on_lqr():
 def test_ilqr_pendulum_swingup_converges():
     """Pendulum swing-up (nx=2, nu=1): the headline iLQR task
     (examples/ilqr/mpc/pendulum.py with dt=0.05, horizon 60)."""
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05)
     solver = iLQR(env, nb_steps=60, init_state=jnp.asarray(env.x0),
                   action_penalty=1e-5)
     trace = solver.run(nb_iter=25)

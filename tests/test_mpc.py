@@ -3,15 +3,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.parallel.mpc import make_ilqr_solver, make_mpc_runner, run_mpc_batch
-from trajopt_tpu.solvers.ilqr import iLQR
+import trajopt_jax
+from trajopt_jax.parallel.mpc import make_ilqr_solver, make_mpc_runner, run_mpc_batch
+from trajopt_jax.solvers.ilqr import iLQR
 
 
 def test_jit_ilqr_matches_host_loop_solver():
     """The fully-compiled iLQR must reach the same optimum as the host-loop class
     (same α-grid/λ semantics; only the tiny random kff init differs)."""
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
 
     solve = jax.jit(make_ilqr_solver(env, nb_steps=60, nb_iter=25))
     state, trace = solve(jnp.asarray(env.x0))
@@ -29,7 +29,7 @@ def test_jit_ilqr_matches_host_loop_solver():
 
 
 def test_jit_ilqr_trace_monotone():
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     solve = jax.jit(make_ilqr_solver(env, nb_steps=40, nb_iter=15))
     state, trace = solve(jnp.asarray(env.x0))
     tr = np.asarray(trace)
@@ -39,7 +39,7 @@ def test_jit_ilqr_trace_monotone():
 def test_mpc_runner_controls_pendulum():
     """Compiled receding-horizon MPC (examples/ilqr/mpc/pendulum.py config scaled
     down: horizon 25, 40 control steps)."""
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     run = jax.jit(make_mpc_runner(env, horizon=25, nb_steps=40, nb_iter=6))
     states, actions, costs = run(jax.random.PRNGKey(0), jnp.asarray(env.x0))
 
@@ -56,7 +56,7 @@ def test_mpc_batch_sharded_over_mesh():
     (examples/ilqr/mpc/pendulum_parallel.py)."""
     from jax.sharding import Mesh
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     mesh = Mesh(np.array(jax.devices("cpu")[:8]), axis_names=("dp",))
 
     data = run_mpc_batch(
@@ -79,9 +79,9 @@ def test_mpc_batch_sharded_over_mesh():
 def test_batched_solver_matches_vmapped():
     """The batch-native solver (one batched backward kernel + global masked λ loop)
     must reproduce the vmapped per-instance solver exactly."""
-    from trajopt_tpu.parallel.mpc import make_ilqr_solver_batched
+    from trajopt_jax.parallel.mpc import make_ilqr_solver_batched
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     x0s = jnp.asarray(env.x0) + 0.3 * jax.random.normal(jax.random.PRNGKey(3), (5, 2))
 
     solve_one = make_ilqr_solver(env, nb_steps=30, nb_iter=8)
@@ -107,7 +107,7 @@ def test_batched_mpc_sharded_matches_vmapped():
     """Batch-native MPC under shard_map on the 8-device mesh == vmapped MPC."""
     from jax.sharding import Mesh
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     mesh = Mesh(np.array(jax.devices("cpu")[:8]), axis_names=("dp",))
 
     data = run_mpc_batch(

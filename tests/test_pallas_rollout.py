@@ -1,4 +1,4 @@
-"""Parity tests for the fused Pallas rollout / line-search kernels
+"""Parity tests for the Pallas rollout / line-search kernels
 (core/pallas_rollout.py) against the lax.scan rollout (solvers/common.
 rollout_tracking) — interpreter mode on CPU, float64."""
 
@@ -7,19 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.core.pallas_rollout import (
+import trajopt_jax
+from trajopt_jax.core.pallas_rollout import (
     pack_rollout,
     pallas_rollout_returns,
     pallas_rollout_selected,
-    pick_time_chunk,
-    rollout_all_alphas_pallas,
-    unpack_selected,
 )
-from trajopt_tpu.core.types import LinearPolicy
-from trajopt_tpu.solvers.common import make_weighting, rollout_tracking
-
-LANES = 128
+from trajopt_jax.core.types import LinearPolicy
+from trajopt_jax.solvers.common import make_weighting, rollout_tracking
+from test_env_tiles import TILE_ENVS
 
 
 def _scan_forward_all(env, K, kff, xref, uref, weighting, alphas):
@@ -50,10 +46,13 @@ def _random_problem(env, key, N, T, scale=0.3):
     return K, kff, xref, uref
 
 
-@pytest.mark.parametrize("name", ["Cartpole-TO-v0", "Pendulum-TO-v1"])
+@pytest.mark.parametrize("name", sorted(set(TILE_ENVS) | {"Pendulum-TO-v1"}))
 def test_rollout_kernels_match_scan(name):
-    env = trajopt_tpu.make(name)
-    N, T = 3, 12
+    """Phase A (all-α returns and finite flags) and phase B (one α per
+    instance, trajectories emitted) against the scan rollouts, for every
+    tile-protocol env."""
+    env = trajopt_jax.make(name)
+    N, T = 3, 8
     alphas = (1.0, 0.5, 0.1)
     weighting = make_weighting(T, None)
     K, kff, xref, uref = _random_problem(env, jax.random.PRNGKey(0), N, T)
@@ -63,43 +62,40 @@ def test_rollout_kernels_match_scan(name):
     )
     ret_scan = jnp.sum(c_scan, axis=2)
 
-    s_p, a_p, ret_p, ok_p = rollout_all_alphas_pallas(
-        env, K, kff, xref, uref, weighting, alphas, interpret=True
+    packed = pack_rollout(K, kff, xref, uref)
+    ret_p, ok_p = pallas_rollout_returns(
+        env, packed, weighting, alphas, interpret=True
     )
-
-    np.testing.assert_allclose(np.asarray(ret_p), np.asarray(ret_scan),
+    np.testing.assert_allclose(np.asarray(ret_p[:N]), np.asarray(ret_scan),
                                rtol=1e-10)
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_scan), rtol=1e-10,
-                               atol=1e-12)
-    np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_scan), rtol=1e-10,
-                               atol=1e-12)
     finite_scan = jnp.all(s_scan < 1e8, axis=(2, 3))
-    np.testing.assert_array_equal(np.asarray(ok_p), np.asarray(finite_scan))
+    np.testing.assert_array_equal(np.asarray(ok_p[:N]), np.asarray(finite_scan))
+
+    pick = jnp.arange(N) % len(alphas)
+    s_p, a_p, r_p = pallas_rollout_selected(
+        env, packed, weighting, jnp.asarray(alphas)[pick], interpret=True
+    )
+    rows = jnp.arange(N)
+    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_scan[rows, pick]),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_scan[rows, pick]),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(r_p), np.asarray(ret_scan[rows, pick]),
+                               rtol=1e-10)
 
 
 def test_selected_alpha_per_lane():
     """Phase B with DIFFERENT α per lane must equal per-instance scan rollouts."""
-    env = trajopt_tpu.make("Cartpole-TO-v0")
+    env = trajopt_jax.make("Cartpole-TO-v0")
     N, T = 4, 8
     weighting = make_weighting(T, None)
     K, kff, xref, uref = _random_problem(env, jax.random.PRNGKey(1), N, T)
     alphas = jnp.asarray([1.0, 0.31, 0.1, 0.031])
 
     packed = pack_rollout(K, kff, xref, uref)
-    nsub = packed["K"].shape[2]
-    # lane-major per-instance α (padding lanes replicate instance 0)
-    al = jnp.concatenate(
-        [alphas, jnp.full((nsub * LANES - N,), alphas[0])]
-    ).reshape(1, 1, -1)
-    from trajopt_tpu.core.pallas_lqr import _to_lanes
-    al = _to_lanes(jnp.transpose(al, (2, 0, 1)), nsub * LANES)[0, 0]
-
-    s_l, a_l, xT_l, ret_l = pallas_rollout_selected(
-        env, packed, weighting, al, time_chunk=pick_time_chunk(T),
-        interpret=True,
+    states, actions, rets = pallas_rollout_selected(
+        env, packed, weighting, alphas, interpret=True
     )
-    states, actions = unpack_selected(s_l, a_l, xT_l, N)
-    rets = ret_l.reshape(-1)[:N]
 
     for i in range(N):
         ctl = LinearPolicy(K=K[i], kff=kff[i])
@@ -118,10 +114,10 @@ def test_solver_level_pallas_rollout_matches_scan_interpreted():
     """The FULL batched solver with rollout='pallas' (interpreter mode) vs the
     scan solver — covers the solver-level glue the kernel tests can't: the
     packed-gain handoff, first-acceptable-α selection, accept/reject masking,
-    λ updates (the path otherwise exercised only on device, test_tpu.py)."""
-    from trajopt_tpu.parallel.mpc import make_ilqr_solver_batched
+    λ updates)."""
+    from trajopt_jax.parallel.mpc import make_ilqr_solver_batched
 
-    env = trajopt_tpu.make("Cartpole-TO-v0")
+    env = trajopt_jax.make("Cartpole-TO-v0")
     N, T, nb_iter = 3, 12, 3
     x0 = jnp.asarray(np.asarray(env.x0))
     x0s = jnp.tile(x0, (N, 1)) + 0.01 * jnp.arange(N, dtype=x0.dtype)[:, None]
@@ -129,11 +125,7 @@ def test_solver_level_pallas_rollout_matches_scan_interpreted():
     ss = jax.jit(make_ilqr_solver_batched(env, T, nb_iter=nb_iter,
                                           backward="scan"))
     s_ref, tr_ref = ss(x0s)
-    # interpreter-mode Pallas: call UNJITTED (CLAUDE.md invariant).  Only the
-    # backward='scan' repack path runs here — the packed-gain handoff
-    # (backward='pallas' → rollout) would put the interpret backward inside the
-    # λ while_loop, whose body compilation of the unrolled interpreter body is
-    # pathological (CLAUDE.md); that path is device-tested in test_tpu.py.
+    # the repack path: gains come batch-leading from the scan backward
     sp = make_ilqr_solver_batched(
         env, T, nb_iter=nb_iter, backward="scan", rollout="pallas",
         interpret=True,
@@ -152,7 +144,7 @@ def test_solver_level_pallas_rollout_matches_scan_interpreted():
 def test_slew_rate_and_activation():
     """Slew-rate control cost and sigmoid activation weighting run through the
     kernel cost path (mbgps.py:76-86 weighting; pendulum.py:111-125 slew)."""
-    env = trajopt_tpu.make("Pendulum-TO-v0", slew_rate=True)
+    env = trajopt_jax.make("Pendulum-TO-v0", slew_rate=True)
     N, T = 2, 10
     weighting = make_weighting(T, {"mult": 0.5, "shift": 5.0})
     K, kff, xref, uref = _random_problem(env, jax.random.PRNGKey(2), N, T)
@@ -161,21 +153,21 @@ def test_slew_rate_and_activation():
     s_scan, a_scan, c_scan = _scan_forward_all(
         env, K, kff, xref, uref, weighting, alphas
     )
-    _, _, ret_p, _ = rollout_all_alphas_pallas(
-        env, K, kff, xref, uref, weighting, alphas, interpret=True
+    ret_p, _ = pallas_rollout_returns(
+        env, pack_rollout(K, kff, xref, uref), weighting, alphas, interpret=True
     )
     np.testing.assert_allclose(
-        np.asarray(ret_p), np.asarray(jnp.sum(c_scan, axis=2)), rtol=1e-10
+        np.asarray(ret_p[:N]), np.asarray(jnp.sum(c_scan, axis=2)), rtol=1e-10
     )
 
 
 def test_solver_fast_line_search_pallas_matches_scan():
-    """fast_line_search=True with rollout='pallas' (round-4: the 1-candidate
+    """fast_line_search=True with rollout='pallas' (the 1-candidate
     phase-A + cond fallback) must reproduce the plain scan solver — including
     iterations where some instance rejects alpha_0 (the slow branch)."""
-    from trajopt_tpu.parallel.mpc import make_ilqr_solver_batched
+    from trajopt_jax.parallel.mpc import make_ilqr_solver_batched
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     N, T = 4, 16
     x0 = jnp.asarray(np.asarray(env.x0), jnp.float64)
     x0s = jnp.tile(x0, (N, 1)) + 0.3 * jnp.arange(N, dtype=jnp.float64)[:, None]
@@ -188,3 +180,58 @@ def test_solver_fast_line_search_pallas_matches_scan():
     )
     rf = np.asarray(sf(x0s)[0].last_return)
     np.testing.assert_allclose(rf, rs, rtol=1e-8)
+
+
+@pytest.mark.parametrize("name", ["Cartpole-TO-v0", "Pendulum-TO-v0"])
+def test_solver_pallas_engines_match_scan_interpreted(name):
+    """Both kernels in the solver (interpreter mode): the batch-minor gains of
+    the backward kernel feed the rollout kernels directly, inside the λ
+    while_loop — results must match the scan engines."""
+    from trajopt_jax.parallel.mpc import make_ilqr_solver_batched
+
+    env = trajopt_jax.make(name)
+    N, T, nb_iter = 3, 8, 2
+    x0 = jnp.asarray(np.asarray(env.x0))
+    x0s = jnp.tile(x0, (N, 1)) + 0.01 * jnp.arange(N, dtype=x0.dtype)[:, None]
+
+    s_ref, tr_ref = jax.jit(
+        make_ilqr_solver_batched(env, T, nb_iter=nb_iter, backward="scan")
+    )(x0s)
+    s_p, tr_p = make_ilqr_solver_batched(
+        env, T, nb_iter=nb_iter, backward="pallas", rollout="pallas",
+        interpret=True,
+    )(x0s)
+    np.testing.assert_allclose(np.asarray(tr_p), np.asarray(tr_ref), rtol=1e-9)
+    np.testing.assert_allclose(
+        np.asarray(s_p.uref), np.asarray(s_ref.uref), rtol=1e-8, atol=1e-10
+    )
+    np.testing.assert_allclose(
+        np.asarray(s_p.K), np.asarray(s_ref.K), rtol=1e-8, atol=1e-10
+    )
+
+
+def test_rollout_lowers_to_triton():
+    """Both rollout phases lower to Triton IR for the GPU at the main path's
+    candidate count (11 α, padded to 16)."""
+    from trajopt_jax.core.pallas_rollout import pallas_rollout_returns
+
+    env = trajopt_jax.make("Cartpole-TO-v0")
+    N, T = 40, 6
+    with jax.enable_x64(False):
+        K, kff, xref, uref = jax.tree.map(
+            lambda x: x.astype(jnp.float32),
+            _random_problem(env, jax.random.PRNGKey(0), N, T),
+        )
+        w = make_weighting(T, None).astype(jnp.float32)
+
+        def both(K, kff, xref, uref):
+            pk = pack_rollout(K, kff, xref, uref)
+            ret, ok = pallas_rollout_returns(
+                env, pk, w, tuple(np.geomspace(1.0, 1e-3, 11))
+            )
+            return ret, ok, pallas_rollout_selected(env, pk, w, ret[:N, 0])
+
+        lowered = jax.jit(both).trace(K, kff, xref, uref).lower(
+            lowering_platforms=("cuda",)
+        )
+    assert lowered.as_text().count("xla.gpu.triton") == 2

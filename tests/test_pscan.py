@@ -3,13 +3,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from trajopt_tpu.core.pscan_lqr import (
+from trajopt_jax.core.pscan_lqr import (
     pilqr_backward,
     priccati_backward,
     sharded_backward,
 )
-from trajopt_tpu.core.scan_lqr import ilqr_backward, riccati_backward
-from trajopt_tpu.core.types import LinearDynamics, QuadraticCost
+from trajopt_jax.core.scan_lqr import ilqr_backward, riccati_backward
+from trajopt_jax.core.types import LinearDynamics, QuadraticCost
 
 from ref_impl import random_quadratic_problem
 
@@ -115,7 +115,7 @@ def test_lane_major_assoc_scan_matches():
     and a pivot-free Gauss-Jordan in place of the LU solve."""
     import jax
 
-    from trajopt_tpu.core.pscan_lqr import pilqr_backward, pilqr_backward_lanes
+    from trajopt_jax.core.pscan_lqr import pilqr_backward, pilqr_backward_lanes
 
     T, dx, du = 57, 4, 2
     ks = jax.random.split(jax.random.PRNGKey(0), 8)
@@ -152,7 +152,7 @@ def test_sharded_ilqr_backward_matches_lane_major():
     λ-augmented problem."""
     from jax.sharding import Mesh
 
-    from trajopt_tpu.core.pscan_lqr import (
+    from trajopt_jax.core.pscan_lqr import (
         pilqr_backward_reg,
         sharded_ilqr_backward,
     )
@@ -192,13 +192,13 @@ def test_riccati_solver_time_mesh_matches():
     """Public-API horizon sharding: Riccati(mesh=…) == Riccati() on LQR."""
     from jax.sharding import Mesh
 
-    import trajopt_tpu
-    from trajopt_tpu.solvers import Riccati
+    import trajopt_jax
+    from trajopt_jax.solvers import Riccati
 
     devices = np.array(jax.devices("cpu")[:8])
     mesh = Mesh(devices, axis_names=("time",))
 
-    env = trajopt_tpu.make("LQR-TO-v0")
+    env = trajopt_jax.make("LQR-TO-v0")
     c_seq = Riccati(env, nb_steps=60, init_state=env.init()).run()
     c_shd = Riccati(env, nb_steps=60, init_state=env.init(), mesh=mesh).run()
     np.testing.assert_allclose(c_shd, c_seq, rtol=1e-8)
@@ -210,13 +210,13 @@ def test_ilqr_solver_time_mesh_matches_pscan():
     semantics, different distribution) through the full solve."""
     from jax.sharding import Mesh
 
-    import trajopt_tpu
-    from trajopt_tpu.parallel.mpc import make_ilqr_solver
+    import trajopt_jax
+    from trajopt_jax.parallel.mpc import make_ilqr_solver
 
     devices = np.array(jax.devices("cpu")[:8])
     mesh = Mesh(devices, axis_names=("time",))
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     x0 = jnp.asarray(np.array(env.x0))
 
     s_ps = make_ilqr_solver(env, nb_steps=24, nb_iter=3, backward="pscan")
@@ -237,13 +237,13 @@ def test_ilqr_solver_2d_dp_time_mesh():
     single-device pscan engine."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    import trajopt_tpu
-    from trajopt_tpu.parallel.mpc import make_ilqr_solver
+    import trajopt_jax
+    from trajopt_jax.parallel.mpc import make_ilqr_solver
 
     devices = np.array(jax.devices("cpu")[:8]).reshape(2, 4)
     mesh = Mesh(devices, axis_names=("dp", "time"))
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     x0 = jnp.asarray(np.array(env.x0))
     x0s = x0[None] + 0.05 * jnp.asarray([[0.0, 0.0], [1.0, -1.0], [-1.0, 0.5],
                                          [0.5, 0.5]])
@@ -271,9 +271,9 @@ def test_sharded_gps_backward_matches_sequential(T):
     v0 chain), Q-value, and the divergence flag."""
     from jax.sharding import Mesh
 
-    from trajopt_tpu.core.pscan_lqr import sharded_gps_backward
-    from trajopt_tpu.core.scan_lqr import gps_backward
-    from trajopt_tpu.core.types import LinearGaussianDynamics
+    from trajopt_jax.core.pscan_lqr import sharded_gps_backward
+    from trajopt_jax.core.scan_lqr import gps_backward
+    from trajopt_jax.core.types import LinearGaussianDynamics
 
     devices = np.array(jax.devices("cpu")[:8])
     mesh = Mesh(devices, axis_names=("time",))
@@ -320,13 +320,13 @@ def test_mbgps_solver_time_mesh_matches():
     must reproduce the unsharded solve through the full dual loop."""
     from jax.sharding import Mesh
 
-    import trajopt_tpu
-    from trajopt_tpu.parallel.gps import make_mbgps_solver
+    import trajopt_jax
+    from trajopt_jax.parallel.gps import make_mbgps_solver
 
     devices = np.array(jax.devices("cpu")[:8])
     mesh = Mesh(devices, axis_names=("time",))
 
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05, sigma_scale=1e-4)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05, sigma_scale=1e-4)
     mu0 = jnp.asarray(np.array(env.x0))
     sigma0 = 0.01 * jnp.eye(env.dm_state, dtype=mu0.dtype)
     key = jax.random.PRNGKey(0)
@@ -347,13 +347,13 @@ def test_mbgps_solver_time_mesh_matches():
 
 
 def _lightdark_belief_expansion(T, seed=0):
-    import trajopt_tpu
-    from trajopt_tpu.core.belief import (
+    import trajopt_jax
+    from trajopt_jax.core.belief import (
         belief_cost_expansion,
         belief_dynamics_expansion,
     )
 
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     key = jax.random.PRNGKey(seed)
     b, a = env.belief_dim, env.act_dim
     mu_b = 2.0 + 0.5 * jax.random.normal(key, (T + 1, b))
@@ -369,8 +369,8 @@ def test_pbsp_backward_matches_sequential_lam0(T):
     """Parallel-in-time BSP backward (two-ladder decomposition): at λ = 0 it
     must reproduce core/belief.bsp_backward (bspilqr/src/util.cpp:83-204)
     exactly — gains, (S, s, τ) value triplet, dS, and the divergence flag."""
-    from trajopt_tpu.core.belief import bsp_backward
-    from trajopt_tpu.core.pscan_lqr import pbsp_backward
+    from trajopt_jax.core.belief import bsp_backward
+    from trajopt_jax.core.pscan_lqr import pbsp_backward
 
     _, cost, dyn = _lightdark_belief_expansion(T)
     ctl_s, S_s, s_s, tau_s, dS_s, div_s = bsp_backward(cost, dyn, 0.0, 1)
@@ -397,7 +397,7 @@ def test_sharded_bsp_backward_matches_single_device(T):
     nonzero λ (λ-folded semantics on both sides)."""
     from jax.sharding import Mesh
 
-    from trajopt_tpu.core.pscan_lqr import pbsp_backward, sharded_bsp_backward
+    from trajopt_jax.core.pscan_lqr import pbsp_backward, sharded_bsp_backward
 
     _, cost, dyn = _lightdark_belief_expansion(T, seed=2)
     mesh = Mesh(np.array(jax.devices("cpu")[:8]), axis_names=("time",))
@@ -426,10 +426,10 @@ def test_bsp_solver_time_mesh_matches():
     the reference scan engine's solution on a benign solve."""
     from jax.sharding import Mesh
 
-    import trajopt_tpu
-    from trajopt_tpu.parallel.bsp import make_bsp_solver
+    import trajopt_jax
+    from trajopt_jax.parallel.bsp import make_bsp_solver
 
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     mu0, sigma0 = env.init()
     mu0, sigma0 = jnp.asarray(mu0), jnp.asarray(sigma0)
     mesh = Mesh(np.array(jax.devices("cpu")[:8]), axis_names=("time",))

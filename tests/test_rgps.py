@@ -3,22 +3,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.core.cubature import (
+import trajopt_jax
+from trajopt_jax.core.cubature import (
     cubature_forward_pass,
     parameter_augment_cost,
     parameter_backward_pass,
     policy_backward_pass,
 )
-from trajopt_tpu.core.scan_lqr import gaussian_forward, gps_backward
-from trajopt_tpu.core.types import (
+from trajopt_jax.core.scan_lqr import gaussian_forward, gps_backward
+from trajopt_jax.core.types import (
     LinearGaussianDynamics,
     LinearGaussianPolicy,
     MatrixNormalParams,
     QuadraticCost,
     vec_from_matrices,
 )
-from trajopt_tpu.solvers.rgps import LRGPS, MBRGPS
+from trajopt_jax.solvers.rgps import LRGPS, MBRGPS
 
 from ref_impl import random_quadratic_problem
 
@@ -170,7 +170,7 @@ def test_parameter_backward_moves_adversarially_at_small_beta():
 @pytest.mark.slow
 def test_lrgps_runs_on_lqr():
     """LRGPS on the adversarial LQR env (examples/rgps/mb_lqr.py:45-59 scaled down)."""
-    env = trajopt_tpu.make("LQR-TO-v1", sigma_scale=1e-4)
+    env = trajopt_jax.make("LQR-TO-v1", sigma_scale=1e-4)
     solver = LRGPS(
         env, nb_steps=20, init_state=env.init(), init_action_sigma=10.0,
         policy_kl_bound=0.25, param_nominal_kl_bound=50.0,
@@ -187,7 +187,7 @@ def test_lrgps_runs_on_lqr():
 
 @pytest.mark.slow
 def test_mbrgps_runs_on_pendulum():
-    env = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05, sigma_scale=1e-4)
+    env = trajopt_jax.make("Pendulum-TO-v0", dt=0.05, sigma_scale=1e-4)
     solver = MBRGPS(
         env, nb_steps=20, init_state=env.init(), init_action_sigma=1.0,
         policy_kl_bound=1.0, param_nominal_kl_bound=10.0,
@@ -202,9 +202,9 @@ def test_mfrgps_runs_on_lqr():
     """Host MFRGPS end-to-end on the adversarial LQR env (rgps/mfrgps.py:35 —
     learned meanfield MatrixNormal nominal from sampled rollouts); the host-class
     coverage gap flagged by VERDICT r2 weak #9."""
-    from trajopt_tpu.solvers.rgps import MFRGPS
+    from trajopt_jax.solvers.rgps import MFRGPS
 
-    env = trajopt_tpu.make("LQR-TO-v1", sigma_scale=1e-4)
+    env = trajopt_jax.make("LQR-TO-v1", sigma_scale=1e-4)
     solver = MFRGPS(
         env, nb_steps=15, init_state=env.init(), init_action_sigma=5.0,
         policy_kl_bound=0.5, param_nominal_kl_bound=50.0,
@@ -226,9 +226,9 @@ def test_robust_beats_standard_under_attack():
     53-111): train with and without the adversary, attack the STANDARD controller
     with the worst-case parameter distribution at the full KL budget, and check
     the robust controller pays a nominal premium but wins under attack."""
-    from trajopt_tpu.solvers.rgps import LRGPS as _LRGPS
+    from trajopt_jax.solvers.rgps import LRGPS as _LRGPS
 
-    env = trajopt_tpu.make("LQR-TO-v1", sigma_scale=1e-4)
+    env = trajopt_jax.make("LQR-TO-v1", sigma_scale=1e-4)
     kwargs = dict(
         nb_steps=20, init_state=env.init(), init_action_sigma=100.0,
         policy_kl_bound=0.25, param_nominal_kl_bound=200.0,
@@ -257,7 +257,7 @@ def test_lrgps_w2_interp_damping():
     """interp='w2' swaps the adversary fixed point's damping geodesic for the
     Wasserstein-2 one (the reference's available alternative, mbrgps.py:561-577)
     and still converges on the adversarial LQR env."""
-    env = trajopt_tpu.make("LQR-TO-v1", sigma_scale=1e-4)
+    env = trajopt_jax.make("LQR-TO-v1", sigma_scale=1e-4)
     solver = LRGPS(
         env, nb_steps=20, init_state=env.init(), init_action_sigma=10.0,
         policy_kl_bound=0.25, param_nominal_kl_bound=50.0,

@@ -3,10 +3,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import trajopt_tpu
-from trajopt_tpu.core.scan_lqr import riccati_backward
-from trajopt_tpu.core.types import LinearDynamics, QuadraticCost
-from trajopt_tpu.solvers.riccati import Riccati
+import trajopt_jax
+from trajopt_jax.core.scan_lqr import riccati_backward
+from trajopt_jax.core.types import LinearDynamics, QuadraticCost
+from trajopt_jax.solvers.riccati import Riccati
 
 from ref_impl import random_quadratic_problem, riccati_backward_np
 
@@ -36,7 +36,7 @@ def test_riccati_backward_matches_numpy_oracle():
 def test_riccati_lqr_converges_to_optimum():
     """Golden test: on the analytic LQR env, the solver must reproduce the exact
     optimal LQR cost computed by an independent NumPy dynamic-programming solve."""
-    env = trajopt_tpu.make("LQR-TO-v0")
+    env = trajopt_jax.make("LQR-TO-v0")
     T = 60
     solver = Riccati(env, nb_steps=T, init_state=env.init())
     c1 = solver.run()
@@ -77,7 +77,7 @@ def test_riccati_lqr_converges_to_optimum():
 def test_riccati_cost_matches_value_function_prediction():
     """V(x0) from the backward pass equals the realized quadratic cost along the
     rollout (deterministic env, exact linear dynamics) — Bellman consistency."""
-    env = trajopt_tpu.make("LQR-TO-v0")
+    env = trajopt_jax.make("LQR-TO-v0")
     solver = Riccati(env, nb_steps=60, init_state=env.init())
     solver.run()
     realized = solver.run()  # cost of rollout under the optimal policy
@@ -105,10 +105,10 @@ def test_riccati_cost_matches_value_function_prediction():
 def test_batched_riccati_solver_matches_host():
     """Batch-native Riccati (parallel/riccati.py, scan engine on CPU) must match
     the host Riccati class per instance."""
-    from trajopt_tpu.parallel.riccati import make_riccati_solver_batched
-    from trajopt_tpu.solvers import Riccati
+    from trajopt_jax.parallel.riccati import make_riccati_solver_batched
+    from trajopt_jax.solvers import Riccati
 
-    env = trajopt_tpu.make("LQR-TO-v0")
+    env = trajopt_jax.make("LQR-TO-v0")
     solve = jax.jit(make_riccati_solver_batched(env, nb_steps=40))
     mu0, _ = env.init()
     x0s = jnp.asarray(mu0) + jnp.asarray([[0.0, 0.0], [0.3, -0.2], [-0.5, 0.1]])

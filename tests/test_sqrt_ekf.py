@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import trajopt_tpu
-from trajopt_tpu.core.ekf import EKF
-from trajopt_tpu.core.sqrt_ekf import (
+import trajopt_jax
+from trajopt_jax.core.ekf import EKF
+from trajopt_jax.core.sqrt_ekf import (
     SqrtEKF,
     chol_factor,
     sqrt_innovate_factor,
@@ -19,7 +19,7 @@ from trajopt_tpu.core.sqrt_ekf import (
 def test_sqrt_matches_dense_ekf_f64():
     """Over a light-dark trajectory the factor filter reproduces the dense EKF
     (whose jitters/floors are no-ops in f64) to roundoff."""
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     dense, sqrt = EKF(env), SqrtEKF(env)
 
     mu_d, sig_d = env.init()
@@ -44,7 +44,7 @@ def test_sqrt_inference_jacfwd_finite():
     """jacfwd through the QR-array update is well-defined (the eigh-clamping
     alternative is not) — required because BSP belief dynamics differentiate
     through the filter step."""
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     sqrt = SqrtEKF(env)
     mu0, sigma0 = env.init()
     L0 = chol_factor(sigma0)
@@ -62,7 +62,7 @@ def test_sqrt_update_f32_structurally_psd():
     """In f32, with a near-singular channel at the reference's 1e-8 noise floor,
     the factor update stays exactly PSD (Σ = L Lᵀ by construction) and tracks the
     f64 oracle to f32 precision — the regime where the dense difference form
-    D − KHD loses definiteness on TPU (core/ekf.py:_inv docstring)."""
+    D − KHD loses definiteness in f32 (core/ekf.py:_inv docstring)."""
     rng = np.random.default_rng(1)
     n = 3
     G = rng.standard_normal((n, n))
@@ -109,9 +109,9 @@ def test_sqrt_predict_factor_matches_dense():
 
 def test_mpc_runner_sqrt_filter_matches_joseph():
     """The compiled light-dark MPC episode is filter-form-invariant in f64."""
-    from trajopt_tpu.parallel.bsp import make_bsp_mpc_runner
+    from trajopt_jax.parallel.bsp import make_bsp_mpc_runner
 
-    env = trajopt_tpu.make("LightDark-TO-v0")
+    env = trajopt_jax.make("LightDark-TO-v0")
     key = jax.random.PRNGKey(3)
     x0 = env.reset_state()
 

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from trajopt_tpu.core.unrolled_linalg import (
+from trajopt_jax.core.unrolled_linalg import (
     chol_solve_unrolled,
     chol_unrolled,
     inv_psd_unrolled,
